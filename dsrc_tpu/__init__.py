@@ -1,26 +1,22 @@
-"""dsrc_tpu — a TPU-native FASTQ compression engine.
+"""dsrc_tpu — a FASTQ compression engine in JAX/XLA.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of the
-reference DSRC 2.02 (refresh-bio/DSRC): lossless and lossy FASTQ compression
-with DNA modes 0-3, quality modes 0-2, tokenized read-ID compression,
+Brand-new JAX/XLA implementation with the capabilities of the reference
+DSRC 2.02 (refresh-bio/DSRC): lossless and lossy FASTQ compression with DNA
+modes 0-3, quality modes 0-2, tokenized read-ID compression,
 Illumina/SOLiD/454 support, CRC32 self-verification, a block-indexed archive
 container, CLI and library APIs.  See SURVEY.md for the reference analysis
-and DESIGN.md for the TPU-first architecture.
+and DESIGN.md for the architecture.
 """
 __version__ = "0.1.0"
 
-import os as _os
+from .utils.jax_cache import use_compile_cache
 
 # Persistent XLA compilation cache: first-run compiles of the big block
-# executables are written here and reused by every later process (CLI,
-# library, bench).  ~/.cache survives /tmp cleanup; override or disable
-# with the standard JAX env vars.
-_os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    _os.path.join(_os.path.expanduser("~"), ".cache", "dsrc_tpu", "jax"))
-_os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+# executables are written there and reused by every later process (CLI,
+# library, bench).  See utils/jax_cache.py for where.
+use_compile_cache()
 
-from .config import (  # noqa: F401
+from .config import (  # noqa: E402,F401
     AUTO_QUALITY_OFFSET,
     CompressionSettings,
     DatasetType,
@@ -31,7 +27,7 @@ from .config import (  # noqa: F401
 
 
 def __getattr__(name):
-    # Lazy exports that pull in jax (keep `import dsrc_tpu` light).
+    # Lazy exports that pull in the codec modules.
     if name in ("DsrcModule", "compress", "decompress"):
         from . import api
         return getattr(api, name)

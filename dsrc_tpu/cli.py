@@ -100,20 +100,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     except DsrcException as e:
         print(str(e), file=sys.stderr)
         return 1
-    import os
-    # persistent XLA compilation cache by default: the first run of a block
-    # shape pays the compile, every later CLI invocation reuses it
-    os.environ.setdefault(
-        "JAX_COMPILATION_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "dsrc_tpu", "jax"))
-    os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-    if os.environ.get("DSRC_FORCE_PLATFORM"):
-        # escape hatch for environments whose site hooks pre-select a jax
-        # backend (config beats the JAX_PLATFORMS env var)
-        import jax
-        jax.config.update("jax_platforms",
-                          os.environ["DSRC_FORCE_PLATFORM"])
-    from .api import DsrcModule  # deferred: heavy jax import
+    from .utils.jax_cache import use_compile_cache
+    # the first run of a block shape pays the compile, every later CLI
+    # invocation reuses it
+    use_compile_cache()
+    from .api import DsrcModule  # deferred: heavy codec import
     m = DsrcModule(params)
     try:
         if mode == "c":

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native FASTQ compression engine.
+"""Configuration for the FASTQ compression engine.
 
 Mirrors the user-visible knobs of the reference (DSRC 2.02) — see
 /root/reference/src/Common.h:115-193 (CompressionSettings, InputParameters) and

@@ -1,10 +1,10 @@
-"""DNA stream codec — per-block scheme selection over TPU kernels.
+"""DNA stream codec — per-block scheme selection over the device kernels.
 
 Capability map vs the reference (DnaModelerProxy.h:50-72, DnaModelerBasicB2.h,
 DnaModelerHuffman.cpp, DnaModelerRCO.h):
 
   scheme PACK2  : <=4 distinct symbols, order 0 — raw 2-bit packing
-                  (DnaModelerBasicB2.h:34-60 equivalent, pure VPU reshape)
+                  (DnaModelerBasicB2.h:34-60 equivalent, pure reshape)
   scheme CTX4   : <=4 distinct symbols, order 1..9 — epoch-adaptive order-k
                   rANS, 2-bit contexts (DnaModelerRCO 4-sym equivalent)
   scheme CTX8   : <=8 distinct symbols, order>=1 — dense remap + order
@@ -46,10 +46,9 @@ SCHEME_RAW = 5
 SCHEME_CTX4P = 6   # base-PAIR symbols (A=16), ctx = previous pairs
 SCHEME_CTX8P = 7   # dense<=8 base-pair symbols (A=64)
 # Pair coding halves both the sequential wavefront steps and the
-# per-symbol table lookups — measured 345 vs 138 Mbase/s decode for ACGT
-# and 238 vs 107 for 8-symbol streams on v5e (tools/probe_pair.py) — and
-# conditioning P(pair | previous pairs) carries the same information as
-# per-base coding at twice the context reach for the pair's second base.
+# per-symbol table lookups, and conditioning P(pair | previous pairs)
+# carries the same information as per-base coding at twice the context
+# reach for the pair's second base.
 
 # matches the reference's 8-symbol cap (2^21 contexts, DnaModelerProxy.h:220);
 # _order8_eff's sampling budget still lowers the effective order on small
@@ -104,8 +103,8 @@ def _order4_eff(order: int, n: int) -> int:
 
 def _order8_eff(order: int, n: int) -> int:
     # bins <= n/8: the quality-ctx lesson (round 5) — sparser tables lose
-    # ratio to Laplace smoothing AND fall off the MXU histogram path
-    # (2^18-bin limit) onto ~10 ns/sym scatter-adds
+    # ratio to Laplace smoothing AND fall off the one-hot matmul
+    # histogram path (2^18-bin limit) onto scatter-adds
     budget = max(1, (max(1, n // 8).bit_length() - 1 - 3)) // 3
     return max(1, min(max(order, 1), MAX_ORDER8, budget))
 

@@ -1,4 +1,4 @@
-"""Quality stream codec — per-block scheme selection over TPU kernels.
+"""Quality stream codec — per-block scheme selection over the device kernels.
 
 Capability map vs the reference (QualityModelerProxy.h:113-292,
 QualityPositionModeler.cpp, QualityRLEModeler.cpp, QualityEncoder.h):
@@ -81,8 +81,8 @@ def _coarse_bits(order: int, qbits: int, n_hint: int):
     Total history bits bounded by BOTH the sampling budget (total bins <=
     n/8, else the per-band Laplace smoothing dominates — measured 4.26
     vs 4.09 b/sym AGAINST position-only on AR(1) quality with the old
-    1M-bin hashed contexts) and the MXU histogram limit (bins <= 2^18,
-    ops/ctx.hist_update).  Deterministic from the transmitted stream
+    1M-bin hashed contexts) and the one-hot matmul histogram limit
+    (bins <= 2^18, ops/ctx.hist_update).  Deterministic from the transmitted stream
     length, so encoder and decoder agree."""
     budget = max(0, int(n_hint).bit_length() - 1 - 3 - 4 - qbits)
     hb = min(order * qbits, 18 - 4 - qbits, budget)

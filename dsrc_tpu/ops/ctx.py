@@ -1,4 +1,4 @@
-"""Epoch-adaptive context-model rANS — the TPU-native replacement for the
+"""Epoch-adaptive context-model rANS — the vectorized replacement for the
 reference's per-symbol adaptive order-k range coding (DnaModelerRCO.h:44-131,
 QualityEncoder.h:77-330, SymbolCoderRC.h:23-92).
 
@@ -109,10 +109,7 @@ def encode_ctx_lanes(
         bc, bs, ba = ctx[t0:t1], lanes[t0:t1], active[t0:t1]
         # ONE row-take per symbol + a fused one-hot masked reduction over
         # the alphabet: (cum << 15 | freq) packed into the table entry
-        # (both < 2^15).  A flat per-element gather costs 8.3 ns/sym on
-        # v5e while the row-take + mask-sum fuses to 3.5 ns/sym
-        # (tools/probe_enc_lookup.py) — table lookups are the encode
-        # wavefront's dominant cost.
+        # (both < 2^15), so one lookup yields both values.
         ptab = (cumfull[:, :nsym] << 15) | table
         rows = jnp.take(ptab, bc, axis=0, mode="clip")    # [tb, L, A]
         vals = jnp.where(bs[:, :, None] == sym_iota, rows, 0).sum(axis=2)
@@ -123,8 +120,8 @@ def encode_ctx_lanes(
 
 def hist_update(flat: jnp.ndarray, active: jnp.ndarray, nbins: int):
     """[*] flat bin ids -> [nbins] int32 counts of the active elements.
-    MXU one-hot outer product when the id space splits into <= 512-wide
-    halves, scatter-add beyond that."""
+    int8 one-hot matmul when the id space splits into <= 512-wide halves,
+    scatter-add beyond that."""
     if nbins <= 512 * 512:
         return _hist_mxu(jnp.where(active, flat, 0), active, nbins)
     out = jnp.zeros((nbins,), jnp.int32)
@@ -132,12 +129,11 @@ def hist_update(flat: jnp.ndarray, active: jnp.ndarray, nbins: int):
 
 
 def _hist_mxu(ids: jnp.ndarray, active: jnp.ndarray, nbins: int):
-    """[*] flat bin ids (masked by active) -> [nbins] int32 counts as an
-    MXU one-hot outer product: split id = hi*W + lo, then
+    """[*] flat bin ids (masked by active) -> [nbins] int32 counts as a
+    one-hot outer product: split id = hi*W + lo, then
     hist2d[h, l] = sum_i oh_hi[i, h] * oh_lo[i, l] — one matmul contracting
-    over all symbols replaces a scatter-add (~10 ns/element serialized on
-    TPU; the scatter was the bottleneck of BOTH generic wavefronts).
-    Exact: int8 0/1 one-hot operands with int32 MXU accumulation."""
+    over all symbols replaces a scatter-add.  Exact: int8 0/1 one-hot
+    operands with int32 accumulation."""
     w, wbits = 128, 7
     while -(-nbins // w) > w:                 # keep hi_n <= W (<= 512)
         w, wbits = w * 2, wbits + 1
@@ -173,9 +169,8 @@ def decode_ctx_lanes(
     """Mirror of encode_ctx_lanes.  Returns syms [T, L] int32.
 
     The payload is the PAIRED layout (two u16 renorm words per i32); each
-    chunk prefetches the 5 pairs that can cover its <= UNROLL word reads
-    with one windowed gather — random gathers cost ~7 ns per ELEMENT on
-    TPU, so pairing halves the decode's dominant cost.
+    chunk prefetches the pairs that can cover its <= UNROLL word reads
+    from the per-lane payload window, so pairing halves the word fetches.
     """
     l = payload.shape[0]
     wmax = 2 * payload.shape[1]

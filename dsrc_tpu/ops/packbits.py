@@ -2,7 +2,7 @@
 
 The reference's DnaModelerBasicB2 packs <=4-symbol DNA at 2 bits/base inside
 its bit-writer loop (DnaModelerBasicB2.h:34-60); here packing is a reshape +
-weighted sum over byte groups — pure VPU work.
+weighted sum over byte groups — pure elementwise work.
 """
 from __future__ import annotations
 

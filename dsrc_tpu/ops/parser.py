@@ -1,6 +1,6 @@
 """Vectorized FASTQ parsing on device.
 
-TPU-native counterpart of the reference's byte-scanning parser
+Vectorized counterpart of the reference's byte-scanning parser
 (FastqParser.cpp:140-164, FastqParser.h:93-135): instead of walking bytes one
 at a time, a block's byte tensor is parsed with mask/cumsum/scatter ops —
 newline detection, line tables, record field tables and stream gathers are all

@@ -1,4 +1,4 @@
-"""Batched rANS entropy engine — the TPU-native replacement for the
+"""Batched rANS entropy engine — the vectorized replacement for the
 reference's scalar adaptive range coder (RangeCoder.h:44-134,
 SymbolCoderRC.h:23-92) and Huffman coder (huffman.cpp).
 
@@ -109,10 +109,8 @@ def cum_from_freqs(freqs: jnp.ndarray) -> jnp.ndarray:
 # Encoder core: reverse wavefront with precomputed (freq, cum)
 # --------------------------------------------------------------------------
 
-UNROLL = min(32, max(2, int(__import__("os").environ.get(
-    "DSRC_TPU_UNROLL", "8"))))
-# decode symbols per scan step (pair window = UNROLL//2+1).  Decode-side
-# scheduling only (wire format unaffected); env-tunable for probes.
+UNROLL = 8       # decode symbols per chunk (pair window = UNROLL//2+1);
+# decode-side scheduling only (wire format unaffected)
 ENC_UNROLL = 32  # encode symbols per scan step
 TILE = 64        # payload tile, in u16 PAIRS (128 words = one 512 B row)
 TILE_BITS = 6
@@ -120,14 +118,17 @@ TILE_BITS = 6
 # consumed at most, so a 2-tile (128-pair) window always covers a whole
 # super-chunk for any SUPER in 1..8.  SUPER is a decode-side CADENCE only
 # (the wire format and encoder are unaffected), but it multiplies the
-# unrolled scan-body size and hence XLA compile time — the CPU test suite
-# sets DSRC_TPU_SUPER=2 via conftest to keep compiles tractable.
+# unrolled scan-body size and hence XLA compile time, roughly linearly:
+# on the H100 one SUPER=8 semi-block decode program took 100-124 s to
+# compile and the -m1 context decoders (one unrolled body per band) did not
+# finish within 12 minutes, so the default is 1.  DSRC_TPU_SUPER overrides
+# it (a test decodes the same archive at 8 to pin cadence independence).
 SUPER = min(8, max(1, int(__import__("os").environ.get(
-    "DSRC_TPU_SUPER", "8"))))
+    "DSRC_TPU_SUPER", "1"))))
 
 # Payload access is WINDOWED: the hot loops never touch the full [L, Wp]
-# payload per chunk (that dense pass was ~70% of decode time and the
-# dominant HBM traffic).  Instead a per-lane 2-tile register window slides
+# payload per chunk (that dense pass would dominate decode time and
+# device-memory traffic).  Instead a per-lane 2-tile register window slides
 # monotonically: the decoder refreshes it once per super-chunk with one
 # masked pass over the tiled payload; the encoder accumulates emissions
 # into the window and emits one completed tile per chunk AT MOST through
@@ -135,9 +136,9 @@ SUPER = min(8, max(1, int(__import__("os").environ.get(
 
 
 def _div_u32(x, f):
-    """Exact unsigned x // f via float reciprocal + correction (TPUs have no
-    native integer division).  Valid for q = x // f < 2^24: the f32
-    approximation is then off by at most 1, fixed branchlessly."""
+    """Exact unsigned (x // f, x % f) via an f32 reciprocal + correction.
+    Valid for q = x // f < 2^24 (the encoder keeps q < 2^18): the f32
+    estimate is then off by at most 1, fixed branchlessly."""
     q = (x.astype(jnp.float32) * (1.0 / f.astype(jnp.float32))) \
         .astype(jnp.uint32)
     r = x - q * f                       # wraps (mod 2^32) if q overshot
@@ -167,9 +168,8 @@ def payload_window(payload, bt, nt: int):
     over the tiled payload per super-chunk instead of per chunk).
 
     Layout note: the window stays L-MAJOR like the payload — a width-major
-    form needs a [L, Wp] transpose per decode call, which measured ~1.2 ms
-    per 67 MB payload on v5e and ate its own win (the encoder, which OWNS
-    its window, does run width-major; see rans_encode_from_freqs)."""
+    form needs a [L, Wp] transpose per decode call (the encoder, which
+    OWNS its window, does run width-major; see rans_encode_from_freqs)."""
     l = payload.shape[0]
     tl = jnp.pad(payload, ((0, 0), (0, nt * TILE - payload.shape[1]))) \
         .reshape(l, nt, TILE)

@@ -34,9 +34,8 @@ HASH_QUAL = 2     # quality value of '#' at offset 33 (truncation symbol)
 
 
 def _remap(data: jnp.ndarray, chars: bytes) -> jnp.ndarray:
-    """Map bytes to dense symbol indices via a compare/select chain
-    (constant-table gathers are slow on TPU; A<=19 selects are cheap VPU ops).
-    """
+    """Map bytes to dense symbol indices via a compare/select chain (A <= 19
+    fused selects instead of a constant-table gather)."""
     out = jnp.full(data.shape, INVALID_SYM, jnp.int32)
     for i, ch in enumerate(chars):
         out = jnp.where(data == ch, i, out)

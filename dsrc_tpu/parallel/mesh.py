@@ -1,7 +1,7 @@
 """Multi-chip block-parallel compression over a jax.sharding.Mesh.
 
 The reference's parallelism is block data-parallelism with ordered merge
-(DataQueue.h / DsrcWorker.cpp, SURVEY.md §2.5).  The TPU-native equivalent
+(DataQueue.h / DsrcWorker.cpp, SURVEY.md §2.5).  The device equivalent
 (SURVEY.md §5.8): a batch of D blocks is sharded one-per-device along a
 'blocks' mesh axis, each device runs the full uniform block codec on its
 block, and only the tiny per-block *size* vector crosses devices (a cumsum

@@ -1,6 +1,6 @@
 """Host-side bit-granular serialization for headers and metadata.
 
-TPU-native counterpart of the reference BitMemoryReader/Writer
+Counterpart of the reference BitMemoryReader/Writer
 (BitMemory.h:28-435).  Used only for *small* control structures (archive
 headers, block section tables, model descriptors); bulk payloads are written
 as raw byte blobs produced by device kernels.  Big-endian bit order within a

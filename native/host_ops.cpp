@@ -1,6 +1,6 @@
 // Native host-side hot loops for dsrc_tpu.
 //
-// The TPU owns the compute path (JAX/XLA); these are the host runtime pieces
+// The accelerator owns the compute path (JAX/XLA); these are the host runtime pieces
 // that the reference implements in C++ and that stay on the CPU here too:
 // record-boundary scanning for the chunker (reference
 // FastqStream.cpp:18-98), 2-bit packing fallbacks, and compressed-payload

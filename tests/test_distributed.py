@@ -20,7 +20,6 @@ WORKER = textwrap.dedent("""
     pid = int(sys.argv[1]); n = int(sys.argv[2]); port = sys.argv[3]
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
@@ -132,8 +131,6 @@ DRIVER_WORKER = textwrap.dedent("""
     in_path, out_path = sys.argv[4], sys.argv[5]
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-    os.environ.setdefault("DSRC_TPU_SUPER", "2")
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_cpu_collectives_implementation", "gloo")

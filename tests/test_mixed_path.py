@@ -52,8 +52,8 @@ def test_mixed_uniform_and_generic_blocks_roundtrip(tmp_path):
 
 def test_decode_super_cadence_independent(tmp_path):
     """An archive written under one DSRC_TPU_SUPER decodes byte-identically
-    under another (production 8 vs test 2) — run in a subprocess because
-    the cadence is fixed at import time."""
+    under another (8 vs the default 1) — run in a subprocess because the
+    cadence is fixed at import time."""
     data, arch = _mixed_archive(tmp_path)
     fq = tmp_path / "in.xfqz"
     fq.write_bytes(arch.getvalue())

@@ -3,7 +3,7 @@
 Every native entry point must agree bit-for-bit with the pure-numpy
 fallback so the package behaves identically with and without the built
 library (the reference's host runtime is C++, DsrcWorker.cpp /
-FastqParser.cpp; ours mirrors that split: TPU owns compute, C++ owns the
+FastqParser.cpp; ours mirrors that split: the device owns compute, C++ owns the
 host staging loops)."""
 import numpy as np
 import pytest

@@ -65,23 +65,24 @@ def test_uniform_check_rejects_bad_block():
 
 
 def test_lookup_rows_exact_vs_gather():
-    """The bulk (freq, cum) lookup must reproduce table gathers EXACTLY on
-    every backend.  History: round 2 ran this as an MXU one-hot
-    contraction, whose default-precision bf16 multiply rounds table values
-    >= 256 (8 mantissa bits) — every encoded (freq, cum) was corrupted on
-    TPU while CPU passed.  The all-integer VPU select chain is exact by
-    construction; this pins it against regressions back to matmuls."""
+    """The bulk packed (cum << 15 | freq) lookup of the encoder's main path
+    (_lookup_packed) must reproduce table gathers EXACTLY on every backend.
+    History: round 2 ran this as a one-hot matmul, whose default-precision
+    bf16 multiply rounds table values >= 256 (8 mantissa bits) — every
+    encoded (freq, cum) was corrupted on the accelerator while the CPU
+    passed.  The all-integer select chain is exact by construction; this
+    pins it against regressions back to float matmuls."""
     from dsrc_tpu.ops.rans import cum_from_freqs, quantize_counts
 
     rng = np.random.default_rng(7)
-    t, ll, a = 512, 37, 64
-    lanes = jnp.asarray(rng.integers(0, a, (t, ll)).astype(np.int32))
-    counts = jnp.asarray(rng.integers(0, 5000, (t, a)).astype(np.int32))
-    tab_t = quantize_counts(counts)                 # rows sum to M = 2^14
-    cum_t = cum_from_freqs(tab_t)[:, :a]
-    f, cu = UP._lookup_rows(lanes, tab_t, cum_t, a)
-    tab_np, cum_np = np.asarray(tab_t), np.asarray(cum_t)
-    lanes_np = np.asarray(lanes)
-    rows = np.arange(t)[:, None]
-    np.testing.assert_array_equal(np.asarray(f), tab_np[rows, lanes_np])
-    np.testing.assert_array_equal(np.asarray(cu), cum_np[rows, lanes_np])
+    r, p, a = 512, 37, 64
+    mat = jnp.asarray(rng.integers(0, a, (r, p)).astype(np.int32))
+    counts = jnp.asarray(rng.integers(0, 5000, (p, a)).astype(np.int32))
+    table = quantize_counts(counts)                 # rows sum to M = 2^14
+    cumfull = cum_from_freqs(table)                 # [P, A+1]
+    pk = np.asarray(UP._lookup_packed(mat, table, cumfull, a))
+    tab_np, cum_np = np.asarray(table), np.asarray(cumfull)
+    mat_np = np.asarray(mat)
+    cols = np.arange(p)[None, :]
+    np.testing.assert_array_equal(pk & 0x7FFF, tab_np[cols, mat_np])
+    np.testing.assert_array_equal(pk >> 15, cum_np[cols, mat_np])

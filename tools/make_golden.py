@@ -7,7 +7,6 @@ import os
 import sys
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("DSRC_TPU_SUPER", "2")
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
