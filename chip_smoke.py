@@ -45,6 +45,8 @@ import traceback
 
 import numpy as np
 
+from dsrc_tpu.utils.gpu import card_names
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".smoke")
 MiB = 1 << 20
@@ -54,18 +56,6 @@ PHASES = ("build", "semi", "uniform", "high", "golden", "ints")
 # --------------------------------------------------------------------------
 # Output
 # --------------------------------------------------------------------------
-
-def card_names() -> list:
-    """`name, power.limit` of every card, as nvidia-smi reports them."""
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60).stdout
-    except (OSError, subprocess.SubprocessError):
-        return []
-    return [ln.strip() for ln in out.splitlines() if ln.strip()]
-
 
 class Say:
     """Prints finding lines prefixed with the card's name and power."""
@@ -657,23 +647,31 @@ def run_phases(say, phases, seed: int) -> bool:
     return ok
 
 
-def one_card(args) -> int:
+def require_gpus(where: str, count: int = 0) -> list:
+    """JAX's devices when they are GPUs (exactly `count` of them, if
+    given); otherwise says why on stderr and exits with code 2."""
     import jax
     devs = jax.devices()
-    if devs[0].platform != "gpu":
-        print(f"chip_smoke: needs a GPU; JAX found {devs[0].platform}",
-              file=sys.stderr)
-        return 2
-    from dsrc_tpu.utils.jax_cache import use_compile_cache
-    cache = use_compile_cache()
+    if devs[0].platform != "gpu" or (count and len(devs) != count):
+        print(f"chip_smoke: {where} needs {count or 'a'} GPU"
+              f"{'s' if count > 1 else ''}; JAX found {len(devs)} x "
+              f"{devs[0].platform}", file=sys.stderr)
+        sys.exit(2)
+    return devs
+
+
+def one_card(args) -> int:
+    import jax
+    devs = require_gpus("the one-card run")
     cards = card_names()
     for line in cards:
         print(line, flush=True)
     say = Say(cards[0] if cards else "card unknown")
     from dsrc_tpu.ops.rans import SUPER, UNROLL
     say(f"device: {devs[0].device_kind} x{len(devs)}, platform "
-        f"{devs[0].platform}, jax {jax.__version__}, compile cache {cache}, "
-        f"decode UNROLL {UNROLL} x SUPER {SUPER}")
+        f"{devs[0].platform}, jax {jax.__version__}, compile cache "
+        f"{jax.config.jax_compilation_cache_dir}, decode UNROLL {UNROLL} x "
+        f"SUPER {SUPER}")
     phases = args.only.split(",") if args.only else PHASES
     ok = run_phases(say, phases, args.seed)
     if not ok:
@@ -689,28 +687,54 @@ def one_card(args) -> int:
 # Four cards
 # --------------------------------------------------------------------------
 
-FOUR_INPUTS = (("semi", "novaseq", 256, 0), ("uniform", "fixed", 64, 1))
+FOUR = 4
+FOUR_INPUTS = (("semi", "novaseq", 256, 0, "MeshSemiCodec"),
+               ("uniform", "fixed", 64, 1, "MeshUniformCodec"))
+# seconds per stage: about 2.5x what each took on 4 H100s, compiles
+# included (mesh process 238 s, distributed processes 76 s)
+FOUR_TIMEOUT = {"mesh": 600, "dist": 200}
+
+
+def four_path(tag: str, which: str) -> str:
+    return os.path.join(WORK, f"four_{tag}.{which}.xfqz")
+
+
+def _counting(used: collections.Counter, cls, name: str):
+    """Patch `cls.name` to count its calls in `used`."""
+    import unittest.mock
+    orig = getattr(cls, name)
+
+    def counted(self, *a, **k):
+        used[f"{cls.__name__}.{name}"] += 1
+        return orig(self, *a, **k)
+
+    return unittest.mock.patch.object(cls, name, counted)
 
 
 def four_child_mesh(args) -> int:
-    """One process over all visible cards: DsrcModule picks the mesh
-    codec; archives must round-trip and equal the single-device archive
-    (DsrcModule with the mesh turned off, on the first card)."""
+    """One process over the four cards: DsrcModule picks the mesh codec;
+    each input must round-trip through it byte for byte, and its archive
+    must equal the single-device archive (DsrcModule with the mesh turned
+    off, on the first card)."""
+    import contextlib
     import unittest.mock
 
-    import jax
     from dsrc_tpu.api import DsrcModule
     from dsrc_tpu.config import InputParameters
     from dsrc_tpu.parallel import mesh as MESH
 
-    devs = jax.devices()
+    devs = require_gpus("the mesh process", FOUR)
+    mesh = MESH.local_device_mesh()
+    if mesh is None or mesh.devices.size != FOUR:
+        raise AssertionError(f"mesh: no {FOUR}-device mesh over {devs}")
     say = Say(args.card)
-    say(f"mesh: {len(devs)} x {devs[0].device_kind} in one process")
-    for tag, kind, mb, off in FOUR_INPUTS:
+    say(f"mesh: {len(devs)} x {devs[0].device_kind} ({devs[0].platform}) "
+        f"in one process, mesh axis {mesh.axis_names} of "
+        f"{mesh.devices.size}")
+    for tag, kind, mb, off, codec in FOUR_INPUTS:
         fastq = data_file(kind, mb, args.seed + off)
         data = open(fastq, "rb").read()
-        arch = os.path.join(WORK, f"four_{tag}.mesh.xfqz")
-        single = os.path.join(WORK, f"four_{tag}.single.xfqz")
+        arch, single = four_path(tag, "mesh"), four_path(tag, "single")
         out = os.path.join(WORK, f"four_{tag}.mesh.fastq")
         t0 = time.perf_counter()
         with unittest.mock.patch.object(MESH, "local_device_mesh",
@@ -718,13 +742,25 @@ def four_child_mesh(args) -> int:
             DsrcModule(InputParameters.preset(0)).compress(fastq, single)
         say(f"mesh: {tag}: single-device reference archive in "
             f"{time.perf_counter() - t0:.2f} s (compiles included)")
-        mod = DsrcModule(InputParameters.preset(0))
-        t0 = time.perf_counter()
-        mod.compress(fastq, arch)
-        tc = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        mod.decompress(arch, out)
-        td = time.perf_counter() - t0
+        used = collections.Counter()
+        with contextlib.ExitStack() as stack:
+            for cls in (MESH.MeshSemiCodec, MESH.MeshUniformCodec):
+                for name in ("compress_blocks", "decompress_blocks"):
+                    stack.enter_context(_counting(used, cls, name))
+            mod = DsrcModule(InputParameters.preset(0))
+            t0 = time.perf_counter()
+            mod.compress(fastq, arch)
+            tc = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mod.decompress(arch, out)
+            td = time.perf_counter() - t0
+        batches = (used[f"{codec}.compress_blocks"],
+                   used[f"{codec}.decompress_blocks"])
+        say(f"mesh: {tag}: {codec} ran {batches[0]} compress and "
+            f"{batches[1]} decompress batches of {FOUR} blocks; all mesh "
+            f"calls {dict(used)}")
+        if not all(batches):
+            raise AssertionError(f"mesh: {tag} did not go through {codec}")
         if open(out, "rb").read() != data:
             raise AssertionError(f"mesh: {tag} round trip differs")
         say(f"mesh: {tag}: compress {tc:.2f} s, decompress {td:.2f} s "
@@ -743,6 +779,20 @@ def four_child_mesh(args) -> int:
     return 0
 
 
+def require_dist(nproc: int) -> None:
+    """After jax.distributed.initialize: `nproc` processes with one GPU
+    each, or exit with code 2."""
+    import jax
+    devs = jax.devices()
+    if (devs[0].platform != "gpu" or jax.process_count() != nproc
+            or jax.local_device_count() != 1 or len(devs) != nproc):
+        print(f"chip_smoke: compress_distributed needs {nproc} processes "
+              f"with one GPU each; JAX found {jax.process_count()} "
+              f"processes, {jax.local_device_count()} local and {len(devs)} "
+              f"global {devs[0].platform} devices", file=sys.stderr)
+        sys.exit(2)
+
+
 def four_child_dist(args) -> int:
     """One of N processes of compress_distributed, one card each."""
     import jax
@@ -750,29 +800,33 @@ def four_child_dist(args) -> int:
         coordinator_address=f"localhost:{args.port}",
         num_processes=args.nproc, process_id=args.pid,
         local_device_ids=[args.pid])
+    require_dist(args.nproc)
     from dsrc_tpu.api import DsrcModule
     from dsrc_tpu.config import InputParameters
 
     say = Say(args.card)
-    for tag, kind, mb, off in FOUR_INPUTS:
+    for tag, kind, mb, off, _ in FOUR_INPUTS:
         fastq = data_file(kind, mb, args.seed + off)
-        arch = os.path.join(WORK, f"four_{tag}.dist.xfqz")
         t0 = time.perf_counter()
-        DsrcModule(InputParameters.preset(0)).compress(fastq, arch,
-                                                       distributed=True)
+        DsrcModule(InputParameters.preset(0)).compress(
+            fastq, four_path(tag, "dist"), distributed=True)
         if args.pid == 0:
             say(f"dist: {tag}: compress_distributed over {jax.process_count()}"
-                f" processes x {jax.local_device_count()} local card: "
-                f"{time.perf_counter() - t0:.2f} s")
+                f" processes x {jax.local_device_count()} local "
+                f"{jax.local_devices()[0].platform} device: "
+                f"{time.perf_counter() - t0:.2f} s (compiles included)")
     jax.distributed.shutdown()
     return 0
 
 
 def _run_children(cmds, env, timeout: int) -> list:
-    procs = [subprocess.Popen(c, env=e) for c, e in zip(cmds, env)]
+    procs = [subprocess.Popen(c, env=env) for c in cmds]
     try:
         deadline = time.time() + timeout
         return [p.wait(timeout=max(1, deadline - time.time()))
+                for p in procs]
+    except subprocess.TimeoutExpired:
+        return [p.poll() if p.poll() is not None else "timeout"
                 for p in procs]
     finally:
         for p in procs:
@@ -784,56 +838,59 @@ def _run_children(cmds, env, timeout: int) -> list:
 def four_cards(args) -> int:
     """Parent of the four-card run.  It never touches a card itself: the
     mesh process runs first and exits, then the four distributed
-    processes start, so each card has one process at a time."""
+    processes start, so each card has one process at a time.  Children
+    run with JAX_PLATFORMS=cuda, so JAX cannot fall back to the CPU."""
     cards = card_names()
     for line in cards:
         print(line, flush=True)
     card = cards[0] if cards else "card unknown"
     say = Say(card)
-    if len(cards) < 4:
-        say(f"four: needs 4 cards, nvidia-smi lists {len(cards)}")
+    if len(cards) < FOUR:
+        say(f"four: needs {FOUR} cards, nvidia-smi lists {len(cards)}")
         return 2
     t0 = time.perf_counter()
-    for _, kind, mb, off in FOUR_INPUTS:
+    for _, kind, mb, off, _ in FOUR_INPUTS:
         data_file(kind, mb, args.seed + off)
     say(f"four: inputs generated in {time.perf_counter() - t0:.1f} s")
     me = [sys.executable, os.path.abspath(__file__), "--seed",
           str(args.seed), "--card", card]
-    env = dict(os.environ)
+    env = dict(os.environ, JAX_PLATFORMS="cuda")
     device_file = os.path.join(WORK, "four_device.json")
-    if os.path.exists(device_file):
-        os.remove(device_file)
+    for path in [device_file] + [four_path(tag, which)
+                                 for tag, *_ in FOUR_INPUTS
+                                 for which in ("single", "mesh", "dist")]:
+        if os.path.exists(path):
+            os.remove(path)
     t0 = time.perf_counter()
-    rc = _run_children([me + ["--child", "mesh"]], [env], timeout=1500)[0]
+    rc = _run_children([me + ["--child", "mesh"]], env,
+                       FOUR_TIMEOUT["mesh"])[0]
     say(f"four: mesh process exited {rc} after "
         f"{time.perf_counter() - t0:.1f} s")
-    if rc != 0:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    rcs = _run_children(
+        [me + ["--child", "dist", "--pid", str(i), "--nproc", str(FOUR),
+               "--port", str(port)] for i in range(FOUR)],
+        env, FOUR_TIMEOUT["dist"])
+    say(f"four: distributed processes exited {rcs} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rc != 0 or any(rcs):
         say("FAILED")
         return 1
     with open(device_file) as f:
         device = json.load(f)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    n = 4
-    t0 = time.perf_counter()
-    rcs = _run_children(
-        [me + ["--child", "dist", "--pid", str(i), "--nproc", str(n),
-               "--port", str(port)] for i in range(n)],
-        [env] * n, timeout=1500)
-    say(f"four: distributed processes exited {rcs} after "
-        f"{time.perf_counter() - t0:.1f} s")
-    if any(rcs):
-        say("FAILED")
-        return 1
-    ok = True
-    for tag, _, _, _ in FOUR_INPUTS:
-        a = open(os.path.join(WORK, f"four_{tag}.mesh.xfqz"), "rb").read()
-        d = open(os.path.join(WORK, f"four_{tag}.dist.xfqz"), "rb").read()
-        same = a == d
+    ok = device["platform"] == "gpu" and device["count"] == FOUR
+    for tag, *_ in FOUR_INPUTS:
+        single, mesh_a, dist = (open(four_path(tag, w), "rb").read()
+                                for w in ("single", "mesh", "dist"))
+        same = single == mesh_a == dist
         ok &= same
-        say(f"dist: {tag}: archive {len(d)} B sha256 {_sha(d)} "
-            f"{'EQUALS' if same else 'DIFFERS FROM'} the mesh archive")
+        say(f"four: {tag}: compress_distributed archive {len(dist)} B "
+            f"sha256 {_sha(dist)}, mesh {len(mesh_a)} B sha256 "
+            f"{_sha(mesh_a)}, single-device {len(single)} B sha256 "
+            f"{_sha(single)}: {'all EQUAL' if same else 'they DIFFER'}")
     if not ok:
         say("FAILED")
         return 1
@@ -852,7 +909,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--card", default="", help=argparse.SUPPRESS)
     ap.add_argument("--pid", type=int, default=0, help=argparse.SUPPRESS)
-    ap.add_argument("--nproc", type=int, default=4, help=argparse.SUPPRESS)
+    ap.add_argument("--nproc", type=int, default=FOUR,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child == "mesh":

@@ -11,9 +11,10 @@ __version__ = "0.1.0"
 
 from .utils.jax_cache import use_compile_cache
 
-# Persistent XLA compilation cache: first-run compiles of the big block
-# executables are written there and reused by every later process (CLI,
-# library, bench).  See utils/jax_cache.py for where.
+# Persistent XLA compilation cache, the one place it is set: first-run
+# compiles of the big block executables are written there and reused by
+# every later process (CLI, library, bench, chip_smoke).  This imports jax
+# (not the codec modules); see utils/jax_cache.py for where.
 use_compile_cache()
 
 from .config import (  # noqa: E402,F401

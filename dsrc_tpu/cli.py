@@ -100,10 +100,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     except DsrcException as e:
         print(str(e), file=sys.stderr)
         return 1
-    from .utils.jax_cache import use_compile_cache
-    # the first run of a block shape pays the compile, every later CLI
-    # invocation reuses it
-    use_compile_cache()
     from .api import DsrcModule  # deferred: heavy codec import
     m = DsrcModule(params)
     try:

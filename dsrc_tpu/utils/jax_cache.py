@@ -1,8 +1,8 @@
 """Where JAX keeps its persistent compilation cache for this program.
 
-Compiling the block programs takes seconds to minutes, so every entry
-point (the package itself, the CLI, bench.py, chip_smoke.py) calls
-`use_compile_cache()` before its first compile.  The rule:
+Compiling the block programs takes seconds to minutes, so the package
+calls `use_compile_cache()` when it is imported, before any compile of the
+library, the CLI, bench.py or chip_smoke.py.  The rule:
 
   * `JAX_COMPILATION_CACHE_DIR` set: that directory, nothing else changed;
   * otherwise `<checkout>/.jax_cache`, one fixed path inside the checkout

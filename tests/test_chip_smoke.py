@@ -21,6 +21,45 @@ def test_chip_smoke_fails_without_gpu():
     assert "needs a GPU" in r.stderr
 
 
+def test_mesh_child_refuses_without_four_gpus():
+    # the CPU's virtual devices must not stand in for the four cards
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "chip_smoke.py", "--child", "mesh",
+                        "--card", "none"], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 2
+    assert "mesh" not in r.stdout
+    assert "needs 4 GPUs" in r.stderr
+
+
+def test_dist_child_refuses_one_cpu_process():
+    with pytest.raises(SystemExit) as e:
+        S.require_dist(4)
+    assert e.value.code == 2
+
+
+def test_four_cards_needs_four_cards(monkeypatch, capsys):
+    monkeypatch.setattr(S, "card_names", lambda: ["NVIDIA H100, 700 W"])
+    assert S.main(["--four"]) == 2
+    out = capsys.readouterr().out
+    assert "needs 4 cards, nvidia-smi lists 1" in out
+    assert '"ok": true' not in out
+
+
+def test_counting_patch_counts_and_restores():
+    class Codec:
+        def compress_blocks(self, x):
+            return x + 1
+
+    used = S.collections.Counter()
+    orig = Codec.compress_blocks
+    with S._counting(used, Codec, "compress_blocks"):
+        assert Codec().compress_blocks(1) == 2
+        assert Codec().compress_blocks(2) == 3
+    assert used == {"Codec.compress_blocks": 2}
+    assert Codec.compress_blocks is orig
+
+
 @pytest.mark.parametrize("kind,flags,expect", [
     ("novaseq", ["-d0", "-q0", "-b1"], "SEMI"),
     ("fixed", ["-d0", "-q0", "-b1"], "UNIFORM"),
